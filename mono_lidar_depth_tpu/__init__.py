@@ -1,6 +1,6 @@
-"""mono_lidar_depth_tpu — TPU-native depth-augmented monocular SLAM engine.
+"""mono_lidar_depth_tpu — batched depth-augmented monocular SLAM engine.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 KIT-MRT `mono_lidar_depth` (LIMO's lidar→camera depth-fusion subsystem),
 extended with keyframe bundle adjustment and a pose-graph backend.
 See SURVEY.md at the repo root for the reference structural analysis.

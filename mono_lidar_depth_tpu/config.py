@@ -1,4 +1,4 @@
-"""Typed configuration for the TPU-native depth estimator.
+"""Typed configuration for the batched JAX depth estimator.
 
 Single validated dataclass replacing the reference's three config tiers
 (`monolidar_fusion/include/monolidar_fusion/DepthEstimatorParameters.h:7-173`,
@@ -39,7 +39,7 @@ _KEY_ALIASES = {
     "threshold_depth_local_value": "treshold_depth_local_value",
 }
 
-# Reference keys that are accepted but have no effect in the TPU build
+# Reference keys that are accepted but have no effect in this build
 # (dead code paths in the reference: kd-tree search, region growing,
 # radius search knobs that are never read, debug toggles).
 _ACCEPTED_UNUSED = {
@@ -60,7 +60,7 @@ class DepthEstimatorConfig:
     """All knobs of the per-frame depth estimation pipeline.
 
     Mirrors `DepthEstimatorParameters` (reference
-    `DepthEstimatorParameters.h`) plus TPU-build-specific padding /
+    `DepthEstimatorParameters.h`) plus static-shape padding /
     precision knobs.  Frozen + hashable so it can be a static jit arg.
     """
 
@@ -139,7 +139,7 @@ class DepthEstimatorConfig:
     set_all_depths_to_zero: bool = False
     do_depth_calc_statistics: bool = True
 
-    # --- TPU-build specific (no reference equivalent) -------------------
+    # --- Static-shape build settings (no reference equivalent) ----------
     # Static padded sizes: one compiled executable per distinct tuple.
     max_points: int = 131072  # padded lidar cloud size (KITTI ~120k)
     max_features: int = 2048  # padded feature count (~2009/frame in logs)
@@ -168,9 +168,8 @@ class DepthEstimatorConfig:
     # streams of the exact rasterizer to ONE scatter-min by carrying
     # the depth inside the scatter key (~2 cm quantization, decoded
     # depth error <= 1 cm) and reconstructing winner positions at cell
-    # centers (+-0.5 px -> ~1.4 cm lateral at 20 m).  TPU scatters are
-    # latency-bound per OFFSET (DESIGN.md "Rasterization is the new
-    # floor"), so this roughly halves frame-ingest time.  Default OFF:
+    # centers (+-0.5 px -> ~1.4 cm lateral at 20 m).  Whether it saves
+    # time on the GPU is not measured yet (ROADMAP C4).  Default OFF:
     # the exact path stays bit-pinned by the parity oracles.  Requires
     # grid_collision_rule == "nearest".
     fast_rasterization: bool = False

@@ -1,6 +1,6 @@
 """The fused per-frame depth-estimation pipeline.
 
-TPU-native redesign of `Mono_Lidar::DepthEstimator`
+Batched redesign of `Mono_Lidar::DepthEstimator`
 (DepthEstimator.cpp:220-1037).  The reference walks a branchy
 per-feature state machine with ~10 early exits inside an OpenMP loop;
 here every branch is evaluated for ALL features as masked dense lanes
@@ -243,9 +243,6 @@ def estimate_depths_pair(
                                            frame_b, uv_b, valid_b, gp_b))
 
     # Per-frame window gathers, downstream fused over [2N] lanes.
-    # (A fused two-frame kernel — both stacks concatenated vertically in
-    # one VMEM residency — was measured SLOWER end-to-end: the 8 MB
-    # concatenated stack copies outweigh the two saved launches.)
     Na = uv_a.shape[0]
     nb1a, nb2a = _gather_two_scales(cfg, camera, frame_a, uv_a)
     nb1b, nb2b = _gather_two_scales(cfg, camera, frame_b, uv_b)

@@ -1,14 +1,14 @@
 """Batched geometry primitives (L0 of the reference stack).
 
-TPU-native replacements for the reference's Eigen-based primitives:
+Batched replacements for the reference's Eigen-based primitives:
   * pinhole camera        (reference `camera_pinhole.h:20-114`)
   * ray-plane intersection (reference `LinePlaneIntersection*.cpp`)
   * plane through 3 points (Eigen `Hyperplane::Through`)
   * analytic symmetric 3x3 eigendecomposition — replaces every
     JacobiSVD / SelfAdjointEigenSolver call in the reference
     (`PlaneEstimationMEstimator.cpp:44-49`, `PCA.cpp:42-62`) with a
-    closed-form, fully vectorized solver that runs on the VPU with no
-    iterative loops.
+    closed-form, fully vectorized elementwise solver with no iterative
+    loops.
 
 All functions are shape-polymorphic over leading batch dimensions and
 pure jnp — safe under jit/vmap/shard_map.
@@ -171,7 +171,7 @@ def sym3x3_eigenvalues(A: jnp.ndarray) -> jnp.ndarray:
     """Eigenvalues of symmetric [..., 3, 3] matrices, ascending.
 
     Closed-form trigonometric method (Smith 1961): no iteration, no host
-    fallback — pure VPU arithmetic, batches arbitrarily.
+    fallback — pure elementwise arithmetic, batches arbitrarily.
     """
     q = jnp.trace(A, axis1=-2, axis2=-1) / 3.0
     eye = jnp.eye(3, dtype=A.dtype)

@@ -1,6 +1,6 @@
 """Vectorized first-local-max depth-blob segmentation.
 
-TPU-native replacement for `PointHistogram::FilterPointsMinDistBlob`
+Batched replacement for `PointHistogram::FilterPointsMinDistBlob`
 (HistogramPointDepth.cpp:15-123) + `Histogram` (Histogram.cpp).  The
 reference's sequential bin scan becomes a cummax/argmax program over a
 static [N, B] count tensor; all N features segment simultaneously.
@@ -63,7 +63,7 @@ def filter_points_min_dist_blob(
     feature and run the break/abort scan over the <= K occupied-bin
     GROUPS — empty bins between groups are handled by the gap rules.
     Equivalent outcomes (fuzz-verified against the literal-semantics
-    oracle in tests), ~2x faster on TPU (no scatter, K << B lanes).
+    oracle in tests), with no scatter (K << B lanes).
 
     Args:
       depths: [N, K] neighbor camera-z values (only masked entries used).

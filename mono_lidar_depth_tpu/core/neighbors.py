@@ -1,6 +1,6 @@
 """Rectangular-window neighbor gather around feature points.
 
-TPU-native replacement for `NeighborFinderPixel::getNeighbors`
+Batched replacement for `NeighborFinderPixel::getNeighbors`
 (NeighborFinderPixel.cpp:60-95).  The reference scans a dynamic w×h
 pixel rectangle per feature and push_backs hits; here every feature
 reads a STATIC [Ky, Kx] window (upper bound of the dynamic rectangle)
@@ -20,11 +20,10 @@ order (the reference's scan order, which matters for argmax
 tie-breaking parity in the max-spanning-triangle stage) are identical.
 
 Why slices instead of gathers: a per-cell gather formulation costs
-N·K ≈ 430k random HBM offsets through two chained index hops
-(grid → raw index → point table) — measured ~10 ms/frame on this chip,
-2/3 of the whole pipeline.  One dynamic-slice per feature over the
-winner-attribute planes (projection.py) reads the same data as ~N
-contiguous block copies and removes the second hop entirely.
+N·K ≈ 430k random offsets through two chained index hops
+(grid → raw index → point table).  One dynamic-slice per feature over
+the winner-attribute planes (projection.py) reads the same data as ~N
+contiguous row runs and removes the second hop entirely.
 
 Neighbor camera-frame coordinates are DECODED from the planes: z (and
 the ground-inlier flag) from the sign-encoded z plane, x and y from the
@@ -40,8 +39,20 @@ import jax
 import jax.numpy as jnp
 
 from .geometry import PinholeCamera
-from .pallas_windows import slice_windows
 from .projection import POINT_NOT_DEFINED, FrameCloud
+
+
+def slice_windows(stack: jnp.ndarray, sy: jnp.ndarray, sx: jnp.ndarray,
+                  Ky: int, Kx: int) -> jnp.ndarray:
+    """[N, C, Ky, Kx] windows of `stack` [C, H, W] at per-feature
+    starts (sy, sx), which must be pre-clamped to [0, H-Ky] x [0, W-Kx].
+    XLA lowers the vmapped slice to one gather over the whole batch."""
+    C = stack.shape[0]
+
+    def one(sy_i, sx_i):
+        return jax.lax.dynamic_slice(stack, (0, sy_i, sx_i), (C, Ky, Kx))
+
+    return jax.vmap(one)(sy, sx)
 
 
 class NeighborSet(NamedTuple):

@@ -1,6 +1,6 @@
 """Batched local plane estimation over masked neighbor sets.
 
-TPU-native replacements for the reference's per-feature plane machinery:
+Batched replacements for the reference's per-feature plane machinery:
   * max-spanning triangle   (PlaneEstimationCalcMaxSpanningTriangle.cpp:37-144)
   * triangle planarity check (PlaneEstimationCheckPlanar.cpp:18-44)
   * M-estimator plane fit    (PlaneEstimationMEstimator.cpp:18-55)
@@ -50,7 +50,7 @@ def max_spanning_triangle(points: jnp.ndarray, mask: jnp.ndarray,
     """
     N, K, _ = points.shape
     # Pairwise squared distances via the Gram matrix — the inner products
-    # run on the MXU instead of materializing [N, K, K, 3] differences.
+    # are one batched contraction instead of [N, K, K, 3] differences.
     sq = jnp.sum(points * points, axis=-1)  # [N, K]
     gram = jnp.einsum("nki,nji->nkj", points, points,
                       preferred_element_type=points.dtype)

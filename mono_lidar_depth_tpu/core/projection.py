@@ -1,6 +1,6 @@
 """Cloud transform, projection, and pixel-grid construction (per frame).
 
-TPU-native redesign of the reference's frame-ingest path
+Batched redesign of the reference's frame-ingest path
 (`Transform_Cloud_LidarToCamera`, DepthEstimator.cpp:156-217, and
 `NeighborFinderPixel::InitializeLidarProjection`,
 NeighborFinderPixel.cpp:29-58):

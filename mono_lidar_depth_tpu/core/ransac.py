@@ -1,11 +1,11 @@
 """Batched RANSAC / semantic ground-plane estimation.
 
-TPU-native replacement for `RansacPlane` / `SemanticPlane`
+Batched replacement for `RansacPlane` / `SemanticPlane`
 (RansacPlane.cpp:26-274).  The reference runs PCL's sequential RANSAC
 (adaptive iteration count, p = 0.999 early exit, <= 10000 iterations) on
 a 6000-point random subsample.  Here the hypothesis loop becomes a
 fixed-size tensor program: S pre-drawn 3-point hypotheses evaluated
-simultaneously, residuals as one [S, P_sub] matmul on the MXU, argmax
+simultaneously, residuals as one [S, P_sub] matmul, argmax
 inlier count.  With S = 1024 parallel hypotheses the failure probability
 for inlier ratio r is (1 - r^3)^S — < 1e-9 for r >= 0.25, matching the
 sequential scheme's 0.999 guarantee with margin.
@@ -117,7 +117,7 @@ def fit_ground_plane_ransac(
     axis_ok = jnp.abs(n_unit[:, 2]) >= cos_eps
     hyp_ok = tri_ok & axis_ok & (n_norm[:, 0] >= 1e-12)
 
-    # Residuals for all hypotheses over the subsample: one MXU matmul.
+    # Residuals for all hypotheses over the subsample: one matmul.
     res = jnp.abs(sub_pts @ n_unit.T + d[None, :])  # [S_sub, S]
     inl = (res < distance_threshold) & sub_ok[:, None]
     counts = jnp.where(hyp_ok, jnp.sum(inl, axis=0), -1)

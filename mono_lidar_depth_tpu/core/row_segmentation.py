@@ -1,6 +1,6 @@
 """Velodyne scan-row segmentation + region-growing depth segmentation.
 
-TPU-native redesign of `HelperLidarRowSegmentation`
+Batched redesign of `HelperLidarRowSegmentation`
 (HelperLidarRowSegmentation.cpp) — a component that is wired but
 DISABLED in the reference (`CalcDepthSegmentionRegionGrowing` throws
 "Region growing not supported!", DepthEstimator.cpp:608).  This build

@@ -4,7 +4,7 @@ landmark-sharded distributed bundle adjustment.
 Both are GSPMD programs over a named Mesh (mesh.py): XLA inserts the
 collectives; the only explicit communication is the psum of the reduced
 camera system inside the distributed Schur iteration
-(vo.ba.ba_iteration with axis_name), which rides ICI within a slice.
+(vo.ba.ba_iteration with axis_name).
 """
 
 from __future__ import annotations
@@ -57,6 +57,26 @@ def sharded_depth_association(cfg, camera, lidar_to_cam, mesh):
     return step
 
 
+def ba_problem_specs() -> BAProblem:
+    """Partition specs of a landmark-sharded BAProblem."""
+    lm1 = P(LANDMARK_AXIS)
+    return BAProblem(
+        R=P(), t=P(), landmarks=lm1,
+        obs_uv=P(None, LANDMARK_AXIS), obs_mask=P(None, LANDMARK_AXIS),
+        depth_prior=P(None, LANDMARK_AXIS),
+        depth_mask=P(None, LANDMARK_AXIS),
+        fixed=P(), lm_valid=lm1)
+
+
+def pose_graph_specs(axis: str = FRAME_AXIS) -> PoseGraph:
+    """Partition specs of an edge-sharded PoseGraph."""
+    esh = P(axis)
+    return PoseGraph(
+        R=P(), t=P(),
+        edge_i=esh, edge_j=esh, Z_R=esh, Z_t=esh,
+        edge_weight=esh, edge_valid=esh, fixed=P())
+
+
 def distributed_ba(camera, mesh, iters: int = 8, huber_px: float = 2.0,
                    depth_weight: float = 1.0, huber_depth: float = 0.5,
                    damping: float = 1e-4):
@@ -73,13 +93,7 @@ def distributed_ba(camera, mesh, iters: int = 8, huber_px: float = 2.0,
     obs_uv [K,L,2], obs_mask, depth_prior, depth_mask, lm_valid.
     Pose leaves (R, t, fixed) are replicated.
     """
-    lm1 = P(LANDMARK_AXIS)
-    specs = BAProblem(
-        R=P(), t=P(), landmarks=lm1,
-        obs_uv=P(None, LANDMARK_AXIS), obs_mask=P(None, LANDMARK_AXIS),
-        depth_prior=P(None, LANDMARK_AXIS),
-        depth_mask=P(None, LANDMARK_AXIS),
-        fixed=P(), lm_valid=lm1)
+    specs = ba_problem_specs()
 
     @partial(shard_map, mesh=mesh, in_specs=(specs,),
              out_specs=BAResult(problem=specs, initial_cost=P(),
@@ -118,11 +132,7 @@ def distributed_pose_graph(mesh, gn_iters: int = 8, cg_iters: int = 60,
     Verified equal to the single-device solver at KITTI scale
     (N≈4500 poses) on the virtual 8-device mesh (tests/test_dist.py).
     """
-    esh = P(axis)
-    specs = PoseGraph(
-        R=P(), t=P(),
-        edge_i=esh, edge_j=esh, Z_R=esh, Z_t=esh,
-        edge_weight=esh, edge_valid=esh, fixed=P())
+    specs = pose_graph_specs(axis)
 
     @partial(shard_map, mesh=mesh, in_specs=(specs,), out_specs=specs,
              check_vma=False)

@@ -25,6 +25,7 @@ import numpy as np
 
 from ..core.geometry import SE3, PinholeCamera
 from . import native as _native
+from .png import read_png
 
 
 def read_velodyne(path: str, max_points: Optional[int] = None
@@ -136,9 +137,7 @@ class KittiSequence:
         p = self.image_dir / f"{index:06d}.png"
         if not p.exists():
             return None
-        from PIL import Image
-
-        return np.asarray(Image.open(p).convert("L"))
+        return read_png(p)
 
     def semantic(self, index: int) -> Optional[np.ndarray]:
         """Semantic label image as [H, W] uint8, or None if the sequence
@@ -148,9 +147,7 @@ class KittiSequence:
         p = self.seq_dir / "semantic_0" / f"{index:06d}.png"
         if not p.exists():
             return None
-        from PIL import Image
-
-        return np.asarray(Image.open(p).convert("L"))
+        return read_png(p)
 
 
 def make_synthetic_scan(rng: np.random.Generator, n_points: int = 120000,

@@ -1,7 +1,8 @@
 """ctypes binding to the native host runtime (native/kitti_reader.cpp).
 
-Builds the shared library on first use (g++ via native/Makefile); falls
-back cleanly to pure-numpy readers when no toolchain is available.
+Brings the shared library up to date on first use (g++ via
+native/Makefile, a no-op when it is current); falls back cleanly to
+pure-numpy readers when no toolchain is available.
 """
 
 from __future__ import annotations
@@ -27,16 +28,17 @@ def _load() -> Optional[ctypes.CDLL]:
     with _lock:
         if _lib is not None or _build_failed:
             return _lib
-        if not _LIB_PATH.exists():
-            try:
-                subprocess.run(["make", "-C", str(_NATIVE_DIR)],
-                               check=True, capture_output=True, timeout=120)
-            except Exception:
+        try:
+            subprocess.run(["make", "-C", str(_NATIVE_DIR)],
+                           check=True, capture_output=True, timeout=120)
+        except Exception:
+            if not _LIB_PATH.exists():
                 _build_failed = True
                 return None
         try:
             lib = ctypes.CDLL(str(_LIB_PATH))
-        except OSError:
+            lib.mld_png_unfilter  # an out-of-date build lacks it
+        except (OSError, AttributeError):
             _build_failed = True
             return None
         lib.mld_read_velodyne.restype = ctypes.c_int64
@@ -51,6 +53,9 @@ def _load() -> Optional[ctypes.CDLL]:
             ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)]
         lib.mld_loader_destroy.restype = None
         lib.mld_loader_destroy.argtypes = [ctypes.c_void_p]
+        lib.mld_png_unfilter.restype = ctypes.c_int64
+        lib.mld_png_unfilter.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
         _lib = lib
         return _lib
 
@@ -72,6 +77,20 @@ def read_velodyne_native(path: str, max_points: int) -> tuple[np.ndarray, int]:
     if n < 0:
         raise FileNotFoundError(path)
     return out, int(n)
+
+
+def png_unfilter_native(rows: np.ndarray) -> np.ndarray:
+    """[H, W + 1] uint8 scanlines (filter byte first) → [H, W] uint8
+    pixels.  Raises if the native lib is unavailable."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    rows = np.ascontiguousarray(rows, dtype=np.uint8)
+    h, w = rows.shape[0], rows.shape[1] - 1
+    out = np.empty((h, w), np.uint8)
+    if lib.mld_png_unfilter(rows.ctypes.data, h, w, out.ctypes.data) != 0:
+        raise ValueError("unknown PNG filter type")
+    return out
 
 
 class NativeScanLoader:

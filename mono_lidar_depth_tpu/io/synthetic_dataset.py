@@ -24,6 +24,8 @@ from pathlib import Path
 
 import numpy as np
 
+from .png import write_png
+
 # Scene layout (world frame == frame-0 camera frame: x right, y down,
 # z forward).  Camera height 1.5 m above ground.
 GROUND_Y = 1.5
@@ -150,8 +152,6 @@ def generate_kitti_sequence(root: str, sequence: str = "99",
                             spec: SyntheticSpec = SyntheticSpec(),
                             seed: int = 0) -> None:
     """Write a synthetic KITTI-format sequence under `root`."""
-    from PIL import Image
-
     rng = np.random.default_rng(seed)
     seq_dir = Path(root) / "sequences" / sequence
     (seq_dir / "velodyne").mkdir(parents=True, exist_ok=True)
@@ -223,10 +223,9 @@ def generate_kitti_sequence(root: str, sequence: str = "99",
                                 spec.road_texture)
         img = np.where(np.isfinite(t), shade, 0.08)
         img = (np.clip(img, 0, 1) * 255).astype(np.uint8).reshape(H, W)
-        Image.fromarray(img, mode="L").save(
-            seq_dir / "image_0" / f"{k:06d}.png")
-        Image.fromarray(label.reshape(H, W), mode="L").save(
-            seq_dir / "semantic_0" / f"{k:06d}.png")
+        write_png(seq_dir / "image_0" / f"{k:06d}.png", img)
+        write_png(seq_dir / "semantic_0" / f"{k:06d}.png",
+                  label.reshape(H, W))
 
         # ---- lidar scan ---------------------------------------------
         # lidar pose: world←lidar = world←cam ∘ cam←lidar
@@ -236,7 +235,8 @@ def generate_kitti_sequence(root: str, sequence: str = "99",
         o2 = np.broadcast_to(o_l, d_world_l.shape)
         t_l, _, _ = _cast(o2, d_world_l, z_end, spec.road_texture)
         hit = np.isfinite(t_l) & (t_l < 120.0)
-        pts_l = d_lid * t_l[:, None]  # lidar-frame (rays are unit)
+        with np.errstate(invalid="ignore"):  # inf * 0 on missed rays
+            pts_l = d_lid * t_l[:, None]  # lidar-frame (rays are unit)
         noise = rng.normal(size=pts_l.shape) * 0.006
         pts_l = (pts_l + noise)[hit].astype(np.float32)
         intens = rng.uniform(0, 1, (len(pts_l), 1)).astype(np.float32)

@@ -1,13 +1,16 @@
 """Matmul-precision control for precision-critical stages.
 
-On TPU, f32 matmuls/convolutions run at bf16 precision by default
-(~0.4% relative error).  The depth-association pipeline tolerates this
-(its decisions have quantization margins and its parity suite passes on
-TPU), but the VO/BA/pose-graph geometry does NOT: `p = R @ X` at 40 m
-with 0.4% error is ~15 cm ≈ 2 px of reprojection noise, which made the
-long-sequence VO diverge on the real chip (ATE 1.7 m on CPU vs 48 km on
-TPU before this fix).  These stages' matmuls are tiny ([3,3]x[3,N],
-[12,2048]-class), so full-f32 precision costs nothing measurable.
+On an NVIDIA H100, XLA may run float32 matmuls, einsums and
+convolutions at default precision in TF32: float32 range with a 10-bit
+mantissa, about 1e-3 relative error per product.  The depth-association
+decisions have quantization margins, but the VO/BA/pose-graph geometry
+does not: `p = R @ X` at 40 m with 1e-3 error is ~4 cm ≈ 0.7 px of
+reprojection noise, and the Schur complements of the pose and BA
+solves cancel large terms.  Every traced
+stage is therefore pinned to full f32, either as a whole
+(`f32_matmuls`) or per operation (`precision=HI`).  The contractions
+are tiny ([3,3]x[3,N], [12,2048]-class), so the pin costs nothing
+measurable.
 """
 
 from __future__ import annotations
@@ -28,30 +31,8 @@ def f32_matmuls(fn):
     return wrapped
 
 
-# Per-op pin for the RESIDUAL-critical tiny matmuls (projections,
-# rotation compositions): these must be exact f32, but they are
-# [3,3]-by-[3,N]-class ops whose cost is negligible either way.
-# Hessian/gradient CONTRACTIONS stay at default precision — Gauss-
-# Newton tolerates approximate curvature as long as residuals are
-# exact (inexact-Newton), and those contractions are the MXU cost.
+# Per-op pin for the residual-critical tiny matmuls (projections,
+# rotation compositions) in code that is not traced under `f32_matmuls`
+# as a whole.  Hessian/gradient terms are elementwise broadcast-reduce
+# sums, exact f32 by construction (see vo/ba.py).
 HI = jax.lax.Precision.HIGHEST
-
-# 3-pass tier for the MXU-shaped curvature contractions: ~1e-6 relative
-# accuracy (enough for the Schur cancellation chain, measured) at half
-# the passes of HIGHEST.
-H3 = jax.lax.Precision.HIGH
-
-
-def hi3_matmuls(fn):
-    """Trace `fn` under jax.default_matmul_precision('high') — on TPU
-    the 3-pass bf16 scheme, ~1e-6 relative error: enough for curvature
-    (Hessian/Schur) math at half the MXU passes of full f32.  Per-op
-    `precision=HI` pins inside still override it for the residual-
-    critical products."""
-
-    @functools.wraps(fn)
-    def wrapped(*args, **kwargs):
-        with jax.default_matmul_precision("high"):
-            return fn(*args, **kwargs)
-
-    return wrapped

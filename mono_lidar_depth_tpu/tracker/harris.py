@@ -1,6 +1,6 @@
 """Shi-Tomasi corner detection, grid-bucketed for static shapes.
 
-TPU-first design: the image never leaves the device; gradients and the
+Device-resident design: the image never leaves the device; gradients and the
 structure tensor are depthwise convolutions (XLA fuses them), and
 non-max suppression is a grid reduction — one corner per spatial cell,
 top-N cells by response — which yields a STATIC [N, 2] feature tensor

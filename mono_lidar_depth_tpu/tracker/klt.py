@@ -1,9 +1,9 @@
 """Pyramidal Lucas-Kanade feature tracking, fully batched.
 
-TPU-first formulation: all N features iterate simultaneously at each
-pyramid level — the LK normal equations are closed-form 2x2 solves on
-the VPU, and the iteration count is static (`lax.fori_loop`).  No
-per-feature control flow anywhere.
+All N features iterate simultaneously at each pyramid level — the LK
+normal equations are closed-form elementwise 2x2 solves, and the
+iteration count is static (`lax.fori_loop`).  No per-feature control
+flow anywhere.
 
 Patch sampling is NOT a gather.  A bilinear patch at center c with an
 integer offset grid shares ONE fractional offset f = c - floor(c)
@@ -13,13 +13,9 @@ across all its taps, so the patch is
     patch   = lerp_2d(window, f)                (4-tap vector blend)
 
 — one per-feature rectangular window extraction plus pure elementwise
-math.  The window extraction reuses the VMEM-resident Pallas kernel
-built for the neighbor search (core/pallas_windows.slice_windows; XLA
-dynamic_slice fallback off-TPU), replacing the `flat[idx]` bilinear
-gathers that made the tracker the whole eval harness's bottleneck:
-measured 87 ms/frame on the remote TPU (~90 batched gathers of
-[384, 81] taps at ~1.3 ms each) against ~6 ms/frame for the entire
-depth-association pipeline it feeds.
+math.  The window extraction is the neighbor search's
+(core/neighbors.slice_windows), replacing ~90 batched `flat[idx]`
+bilinear gathers of [N, 81] taps per frame.
 
 Border semantics: centers are clamped into the image and the window
 is cut from an edge-replicated pad, which reproduces the per-tap
@@ -34,7 +30,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from ..core.pallas_windows import slice_windows
+from ..core.neighbors import slice_windows
 
 
 def build_pyramid(img: jnp.ndarray, levels: int) -> list[jnp.ndarray]:

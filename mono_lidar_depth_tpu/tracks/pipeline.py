@@ -1,6 +1,6 @@
 """Per-frame tracklet-depth association pipeline.
 
-TPU-native replacement for `TrackletDepthModule::process`
+Batched replacement for `TrackletDepthModule::process`
 (tracklet_depth_module.cpp:261-405).  One call per frame:
 
   1. split incoming tracks into known / brand-new
@@ -64,7 +64,7 @@ class TrackletDepthState(NamedTuple):
 
     The last frame is cached RASTERIZED (FrameCloud) rather than as the
     raw cloud: the previous-frame estimator pass then skips the
-    transform + projection + scatter stage (~2 ms/frame on v5e) —
+    transform + projection + scatter stage —
     the reference caches only the raw PCL cloud and re-ingests it
     (tracklet_depth_module.h:148, DepthEstimator::setInputCloud)."""
 

@@ -1,6 +1,6 @@
 """Fixed-capacity tracklet table.
 
-TPU-native replacement for the reference's tracklet cache — a GC'd
+Batched replacement for the reference's tracklet cache — a GC'd
 `std::map<id, feature_tracking::Tracklet>` with per-frame push_front
 (`tracklet_depth_module.cpp:119-207`).  Here the table is a ring of
 `max_tracks` slots over dense `[T, L]` arrays:

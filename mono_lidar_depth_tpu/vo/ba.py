@@ -5,10 +5,10 @@ BASELINE.json; the reference repo produces this solver's INPUT —
 depth-augmented tracklets — and feeds LIMO's external
 keyframe_bundle_adjustment).
 
-TPU-first structure: the observation set is a dense [K, L] grid
-(K keyframes × L landmark slots) with a mask — no sparse indexing, so
-every Jacobian/Hessian contraction is an einsum that XLA maps onto the
-MXU.  One Gauss-Newton iteration is:
+Structure: the observation set is a dense [K, L] grid (K keyframes ×
+L landmark slots) with a mask — no sparse indexing, so every
+Jacobian/Hessian contraction is a dense einsum or broadcast-reduce.
+One Gauss-Newton iteration is:
 
   residuals:  reprojection [K, 2, L] + lidar depth prior [K, L]
   blocks:     Hpp [K,6,6], Hll [3,3,L], Hpl [K,6,3,L], gradients
@@ -17,13 +17,13 @@ MXU.  One Gauss-Newton iteration is:
   solve:      dense [6K, 6K] system (K is the window size, ~5-10)
   back-sub:   dl = Hll⁻¹ (−bl − Hplᵀ dxi)
 
-Memory layout: every per-landmark tensor keeps L as the MINOR (lane)
-dimension — [K, 2, 6, L], [3, 3, L] — so nothing tile-pads.  The naive
-[K, L, 2, 6] layout puts (2, 6) on the (sublane, lane) tile, padding to
-(8, 128): ~85x the bytes, which made one GN iteration ~2.3 ms on v5e;
-this layout runs the same math in ~0.2 ms.  Contractions over (r, l)
-or (m, l) reshape to a single big minor axis and run as one MXU matmul
-per block.
+Memory layout: every per-landmark tensor keeps L as the MINOR
+dimension — [K, 2, 6, L], [3, 3, L] — so the tiny (2, 6) and (3, 3)
+factors never sit on the contiguous axis.  Contractions over (r, l) or
+(m, l) reshape to a single big minor axis and run as one matmul per
+block.  (Whether this layout or [K, L, 2, 6] suits the GPU better is
+open until a profile judges it; tests/test_ba_layout.py pins the two
+to each other.)
 
 The same blocks are what the distributed version psums across devices
 (landmarks sharded, reduced camera system replicated) — see dist/.
@@ -194,14 +194,13 @@ def ba_iteration(camera, pb: BAProblem, huber_px: float, depth_weight: float,
     Jpdw = Jpose_d * w_d[:, None, :]
     Jldw = Jlm_d * w_d[:, None, :]
 
-    # Hessian blocks (reprojection + depth prior) as VPU broadcast-
+    # Hessian blocks (reprojection + depth prior) as broadcast-
     # multiply-reduce: the contracted dims are tiny (r = 2, m/j = 3),
     # and the Hll -> Hll_inv -> W -> S chain feeds the Schur complement
     # S = Hpp - W Hpl^T — a small difference of large terms, so it needs
-    # FULL f32 (bf16 matmul inputs give order-unity cancellation error
-    # in S: measured ATE 9.5 m vs 1.8 m).  Elementwise reductions are
-    # exact f32 by construction and avoid the MXU multi-pass cost that
-    # precision-pinned einsums paid here (measured ~1.2 ms/frame).
+    # FULL f32 (bf16 or TF32 matmul inputs give order-unity cancellation
+    # error in S).  Elementwise reductions are exact f32 by construction
+    # and need no precision pin.
     Hpp = (jnp.sum(Jpw[:, :, :, None, :] * Jpose[:, :, None, :, :],
                    axis=(1, 4))
            + jnp.sum(Jpdw[:, :, None, :] * Jpose_d[:, None, :, :], axis=3))
@@ -212,7 +211,7 @@ def ba_iteration(camera, pb: BAProblem, huber_px: float, depth_weight: float,
     Hpl = (jnp.sum(Jpw[:, :, :, None, :] * Jlm[:, :, None, :, :], axis=1)
            + Jpdw[:, :, None, :] * Jlm_d[:, None, :, :])  # [K, 6, 3, L]
     # gradients: the outer GN fixed point is (bp, bl) == 0, so gradient
-    # precision sets solution accuracy — same exact-f32 VPU reductions
+    # precision sets solution accuracy — same exact-f32 reductions
     bp = (jnp.sum(Jpw * r[:, :, None, :], axis=(1, 3))
           + jnp.sum(Jpdw * r_d[:, None, :], axis=2))
     bl = (jnp.sum(Jlw * r[:, :, None, :], axis=(0, 1))
@@ -236,15 +235,15 @@ def ba_iteration(camera, pb: BAProblem, huber_px: float, depth_weight: float,
     W = jnp.sum(Hpl[:, :, :, None, :] * Hll_inv[None, None, :, :, :],
                 axis=2)  # [K, 6, 3, L]
 
-    # Reduced camera system (same exact-f32 VPU form; the [K,K,6,6,3,L]
-    # broadcast is ~11M elements — microseconds of VPU/HBM).
+    # Reduced camera system (same exact-f32 elementwise form; the
+    # [K,K,6,6,3,L] broadcast is ~11M elements).
     S_cross = jnp.sum(W[:, None, :, None, :, :]
                       * Hpl[None, :, None, :, :, :],
                       axis=(4, 5))  # [K, K, 6, 6]
     b_red_lm = jnp.sum(W * bl[None, None, :, :], axis=(2, 3))  # [K, 6]
 
     if axis_name is not None:
-        # Reduce the camera system over landmark shards (ICI psum).
+        # Reduce the camera system over landmark shards.
         Hpp = jax.lax.psum(Hpp, axis_name)
         S_cross = jax.lax.psum(S_cross, axis_name)
         bp = jax.lax.psum(bp, axis_name)

@@ -1,8 +1,8 @@
 """Closed-form small-system solvers for the VO hot path.
 
-`jnp.linalg.solve` on a [6, 6] system lowers to an LU custom call that
-costs ~80 us of launch latency on TPU — the pose Gauss-Newton loop
-makes ~17 such calls per frame, so the solves dominate the whole
+`jnp.linalg.solve` on a [6, 6] system lowers to an LU library call, a
+launch of its own per solve — the pose Gauss-Newton loop makes ~17
+such calls per frame, so launch latency would dominate the whole
 estimator.  A 6x6 SPD system splits into 3x3 blocks
 
     [[A, B], [Bt, C]] [x1, x2] = [g1, g2]
@@ -12,12 +12,10 @@ complement — ~20 tiny fused vector HLOs, no custom call.
 
 Every product here is precision-pinned to exact f32: the Schur
 complement M = C - Bᵀ A⁻¹ B cancels strongly for monocular pose
-Hessians (large trans/rot coupling at f ≈ 240), and TPU default
-(bf16-input) matmuls corrupt the GN step direction enough that the
-solve stops converging on frames where exact f32 converges — measured
-as the frame-54/93-97 TPU-vs-CPU trajectory splits in the r3 VO
-divergence diagnosis (scripts/diag_vo_divergence.py).  The matrices
-are 3x3; pinning costs nothing.
+Hessians (large trans/rot coupling at f ≈ 240), and reduced-precision
+(bf16- or TF32-input) matmuls corrupt the GN step direction enough that
+the solve stops converging on frames where exact f32 converges.  The
+matrices are 3x3; pinning costs nothing.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Composes the framework layers into metric monocular odometry
 (the LIMO recipe — the reference repo provides stage 2; stages 3-4 are
-its companion backend, rebuilt here TPU-native):
+its companion backend, rebuilt here as batched JAX):
 
   1. feature tracking            (tracker/)           — or external tracks
   2. lidar depth association     (tracks/pipeline)
@@ -60,8 +60,8 @@ class OdometryConfig(NamedTuple):
     # Carry BA-optimized landmark positions across frames (slots
     # invalidated when their track slot is reused).  Off: landmarks are
     # re-unprojected from the newest in-window depth every frame
-    # (cheap, discards the BA's triangulation refinement — the eval
-    # record quantifies the difference, PARITY_r2.md).
+    # (cheap, discards the BA's triangulation refinement —
+    # scripts/make_parity_record.py's config 3 measures the difference).
     persist_landmarks: bool = False
 
 
@@ -121,9 +121,9 @@ def odometry_step(
     (R_cw, t_cw) is the camera-from-world pose of this frame and
     diagnostics = [num_motion_tracks, num_inliers, mean reproj error].
     """
-    # Depth association runs at DEFAULT matmul precision (its decisions
-    # are margin-guarded and its MXU matmuls are the throughput path);
-    # only the geometry below is precision-pinned (see precision.py).
+    # Depth association's contractions are pinned to full f32 in
+    # core/depth_estimator.py, and the geometry below is pinned here
+    # (see precision.py).
     tl_state, depths, codes = process_frame(
         cfg, camera, lidar_to_cam, state.tracklets, frame)
     return _odometry_tail(cfg, ocfg, camera, state, tl_state,
@@ -132,8 +132,8 @@ def odometry_step(
 
 def _odometry_tail(cfg, ocfg, camera, state, tl_state, depths, codes):
     """Pose GN + window BA + state update.  Residual-critical matmuls
-    are precision-pinned per op (precision.HI); the heavy contractions
-    inside GN/BA stay at default precision (see precision.py)."""
+    are precision-pinned per op (precision.HI) and the GN/BA Hessian
+    terms are broadcast-reduce sums, exact f32 (see precision.py)."""
     table = tl_state.table
 
     # ---- frame-to-frame motion -------------------------------------

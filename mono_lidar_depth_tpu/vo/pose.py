@@ -71,9 +71,8 @@ def estimate_pose_gn(
     if t_init is None:
         t_init = jnp.zeros(3, dtype=jnp.float32)
 
-    # N-minor (lane) layout throughout: p [3, N], J [2, 6, N] — the
-    # [N, 2, 6] form tile-pads (2, 6) to (8, 128) and multiplies the
-    # per-iteration memory traffic ~85x (same restructure as vo/ba.py).
+    # N-minor layout throughout: p [3, N], J [2, 6, N] — the feature
+    # axis stays contiguous (same layout as vo/ba.py).
     X_t = landmarks_ref.T  # [3, N]
 
     def residuals_and_jac(R, t):
@@ -106,8 +105,8 @@ def estimate_pose_gn(
             w_h = jnp.where(err <= huber_px, 1.0,
                             huber_px / jnp.maximum(err, 1e-9))
             w = jnp.where(sel_mask & ~behind, w_h, 0.0)[None, None, :]
-            # VPU broadcast-reduce: exact f32 without the MXU multi-pass
-            # cost of precision-pinned skinny einsums (same rationale as
+            # broadcast-reduce: exact f32 without the multi-pass cost of
+            # precision-pinned skinny einsums (same rationale as
             # vo/ba.py); the gradient sets the GN fixed point (g == 0)
             Jw = J * w
             H = jnp.sum(Jw[:, :, None, :] * J[:, None, :, :], axis=(0, 3))

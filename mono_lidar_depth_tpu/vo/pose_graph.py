@@ -28,7 +28,7 @@ blocks).  Then M⁻¹H = I + R where rank(R) ≤ 12·C for C closure edges,
 so PCG converges in O(C) iterations INDEPENDENT of trajectory length
 — the 6×6-block Thomas factorization of M is one O(N) scan per GN
 step, and each application is two log-depth `associative_scan`s
-(affine recurrences), all TPU-resident.  In the edge-sharded
+(affine recurrences), all device-resident.  In the edge-sharded
 distributed form the chain blocks are psum'd once per GN step and the
 (cheap) preconditioner application is replicated, so distributed and
 single-device solves stay numerically identical.
@@ -165,7 +165,7 @@ def _chain_preconditioner(D: jnp.ndarray, B: jnp.ndarray):
     to two AFFINE recurrences — forward substitution c_k = U_k (r_k -
     B_{k-1}^T c_{k-1}) and back substitution x_k = c_k - U_k B_k
     x_{k+1} — each a log-depth `associative_scan` over [N,6,6]
-    transfer matrices, fully batched on the VPU."""
+    transfer matrices, fully batched."""
     N = D.shape[0]
 
     def inv6_scaled(S):
@@ -379,6 +379,7 @@ def graph_cost(graph: PoseGraph) -> jnp.ndarray:
                              jnp.sum(r * r * _weight6(graph), axis=-1), 0.0))
 
 
+@f32_matmuls
 def sequential_edges(R: jnp.ndarray, t: jnp.ndarray,
                      noise_free: bool = True):
     """Build odometry-chain measurements from a pose sequence (helper

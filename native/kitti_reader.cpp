@@ -1,9 +1,11 @@
 // Native KITTI I/O runtime: velodyne .bin reading + multithreaded
-// prefetching batch loader.
+// prefetching batch loader, and the scanline unfiltering of the
+// camera's 8-bit grayscale PNG frames.
 //
-// TPU-native equivalent of the host-side data path the reference gets
+// Native equivalent of the host-side data path the reference gets
 // from ROS + PCL (pointcloud deserialization in the TCPROS transport
-// and the pcl::PointCloud container).  The hot path here is feeding the TPU:
+// and the pcl::PointCloud container).  The hot path here is feeding the
+// accelerator:
 // a KITTI velodyne scan is ~1.9 MB of float32 (x, y, z, intensity)
 // quadruples; this library memory-maps / streams them into
 // caller-provided padded buffers and runs a small reader thread pool so
@@ -17,6 +19,7 @@
 #include <condition_variable>
 #include <cstdint>
 #include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <mutex>
 #include <queue>
@@ -161,6 +164,41 @@ void mld_loader_destroy(void* handle) {
     L->cv_ready.notify_all();
     for (auto& t : L->workers) t.join();
     delete L;
+}
+
+// Undo the PNG scanline filters (0-4) of an 8-bit image with one byte
+// per pixel.  rows: h scanlines of 1 filter byte + w filtered bytes;
+// out: [h * w] pixels.  Paeth and Average rows depend on the pixel to
+// the left, so each row is one sequential pass.
+// Returns 0, or -1 on a filter type above 4.
+int64_t mld_png_unfilter(const uint8_t* rows, int64_t h, int64_t w,
+                         uint8_t* out) {
+    for (int64_t r = 0; r < h; ++r) {
+        const uint8_t kind = rows[r * (w + 1)];
+        const uint8_t* raw = rows + r * (w + 1) + 1;
+        uint8_t* x = out + r * w;
+        const uint8_t* up = r > 0 ? x - w : nullptr;
+        if (kind > 4) return -1;
+        for (int64_t i = 0; i < w; ++i) {
+            const int a = i > 0 ? x[i - 1] : 0;
+            const int b = up ? up[i] : 0;
+            const int c = (up && i > 0) ? up[i - 1] : 0;
+            int pred = 0;
+            if (kind == 1) {
+                pred = a;
+            } else if (kind == 2) {
+                pred = b;
+            } else if (kind == 3) {
+                pred = (a + b) >> 1;
+            } else if (kind == 4) {
+                const int pa = std::abs(b - c), pb = std::abs(a - c);
+                const int pc = std::abs(a + b - 2 * c);
+                pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+            }
+            x[i] = (uint8_t)(raw[i] + pred);
+        }
+    }
+    return 0;
 }
 
 }  // extern "C"

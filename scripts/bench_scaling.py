@@ -2,9 +2,9 @@
 """Scaling-efficiency harness: frame-parallel depth association and
 landmark-sharded distributed BA at 1..N devices.
 
-On real multi-chip hardware this measures ICI scaling; in this image it
-runs on the virtual CPU mesh (one thread per device), which validates
-the sharding/collective structure and gives indicative efficiency.
+`--platform gpu` runs on the host's GPUs (NVLink collectives);
+the default `--platform cpu` runs on a virtual CPU mesh (one thread per
+device), which validates the sharding/collective structure only.
 
 Prints one JSON line per workload:
   {"workload": ..., "devices": [...], "frames_per_s": [...],
@@ -24,20 +24,23 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--devices", type=int, nargs="+", default=[1, 2, 4, 8])
-    ap.add_argument("--platform", default=None,
-                    help="'cpu' forces the virtual mesh")
+    ap.add_argument("--platform", choices=["cpu", "gpu"], default="cpu",
+                    help="gpu: the host's GPUs; cpu: a virtual mesh")
     args = ap.parse_args()
 
-    os.environ.setdefault("XLA_FLAGS", "")
-    if "host_platform_device_count" not in os.environ["XLA_FLAGS"]:
-        os.environ["XLA_FLAGS"] += (
-            f" --xla_force_host_platform_device_count={max(args.devices)}")
+    if args.platform == "cpu":
+        # the virtual mesh must exist before the backend initializes
+        os.environ.setdefault("XLA_FLAGS", "")
+        if "host_platform_device_count" not in os.environ["XLA_FLAGS"]:
+            os.environ["XLA_FLAGS"] += (
+                " --xla_force_host_platform_device_count="
+                f"{max(args.devices)}")
     import jax
 
-    if args.platform != "tpu":
-        # Only the virtual CPU mesh offers > 1 device in this image;
-        # must select it BEFORE any backend initialization.
-        jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_platforms", args.platform)
+    if len(jax.devices()) < max(args.devices):
+        raise SystemExit(f"{max(args.devices)} {args.platform} devices "
+                         f"needed, {len(jax.devices())} visible")
 
     import numpy as np
     import jax.numpy as jnp
@@ -85,9 +88,9 @@ def main() -> None:
         "devices": args.devices,
         "frames_per_s": [round(f, 1) for f in fps],
         "efficiency_at_max": round(eff, 3),
-        "note": ("virtual CPU mesh shares physical cores - efficiency "
-                 "is only meaningful on real multi-chip hardware; this "
-                 "run validates the sharded program structure")}))
+        "platform": args.platform,
+        "note": ("a virtual CPU mesh shares physical cores - efficiency "
+                 "is only meaningful on GPUs")}))
 
     # ---- workload 2: landmark-sharded distributed BA ----------------
     from mono_lidar_depth_tpu.vo.ba import BAProblem
@@ -136,9 +139,10 @@ def main() -> None:
         "devices": args.devices,
         "solves_per_s": [round(s, 2) for s in solves],
         "efficiency_at_max": round(eff, 3),
+        "platform": args.platform,
         "note": ("per-device landmark shard is L/D - work scales down "
-                 "1/D per device; wall-clock efficiency requires real "
-                 "multi-chip hardware")}))
+                 "1/D per device; wall-clock efficiency is only "
+                 "meaningful on GPUs")}))
 
 
 if __name__ == "__main__":

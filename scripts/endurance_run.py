@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Endurance record: one 2000+ frame sequence end-to-end — VO +
 sliding-window BA + pose-graph backend — with a mid-run
-checkpoint/resume equivalence check (VERDICT r3 item 8; KITTI 00 is
-4541 frames, BASELINE configs 4-5).
+checkpoint/resume equivalence check (KITTI 00 is 4541 frames,
+BASELINE configs 4-5).
 
 Stages:
   1. generate a 2048-frame synthetic loop sequence (cached per tmpdir);
@@ -143,8 +143,8 @@ def main():
 
     # Measurement memo: the drifted leg re-proposes many of the same
     # frame pairs and the consistency filter's remeasure callback
-    # repeats hops — each KLT+depth+GN verification costs ~20 s of
-    # per-pair dispatches on the remote TPU, so cache by frame pair.
+    # repeats hops — each KLT+depth+GN verification is a full device
+    # program per direction, so cache by frame pair.
     _memo: dict = {}
 
     def measure(fi: int, fj: int):

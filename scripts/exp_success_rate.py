@@ -1,6 +1,5 @@
 #!/usr/bin/env python
-"""Controlled experiment: depth success rate vs lidar density
-(VERDICT r2 item 7).
+"""Controlled experiment: depth success rate vs lidar density.
 
 The reference's committed log shows 82.7% success on lidar-COVERED
 features (monolidar_fusion/Logs/log_depth_calc_stats.txt:4-5, 64-beam
@@ -14,7 +13,7 @@ config and reports covered-success per density.  If success climbs
 toward the reference's figure with density, the gap is instrument
 geometry, not algorithm.
 
-Usage: python scripts/exp_success_rate.py [--frames 60] [--platform cpu]
+Usage: python scripts/exp_success_rate.py [--frames 60]
 Prints one JSON line per density.
 """
 
@@ -33,7 +32,6 @@ W, H = 384, 128
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=60)
-    ap.add_argument("--platform", default=None)
     ap.add_argument("--rows", type=int, nargs="+",
                     default=[10, 20, 40, 64])
     ap.add_argument("--road-texture", type=float, default=1.0,
@@ -54,37 +52,41 @@ def main():
                          "denominator with far, degenerate-window "
                          "features")
     args = ap.parse_args()
+    results = sweep(args.frames, args.rows, args.road_texture,
+                    not args.no_far_veto, args.max_range)
+    print(json.dumps({"sweep": results}))
 
-    import jax
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
 
+def sweep(frames: int, rows_list, road_texture: float = 1.0,
+          far_veto: bool = True, max_range=None) -> list[dict]:
+    """Depth success rates per lidar row count; one dict per density
+    (also printed as a JSON line as each finishes)."""
     from mono_lidar_depth_tpu import DepthEstimatorConfig
+    from mono_lidar_depth_tpu.core.result_types import DepthResultType
     from mono_lidar_depth_tpu.eval import eval_depth_sequence
     from mono_lidar_depth_tpu.io.kitti import KittiSequence
     from mono_lidar_depth_tpu.io.synthetic_dataset import (
         SyntheticSpec, generate_kitti_sequence)
 
     results = []
-    for rows in args.rows:
+    for rows in rows_list:
         # hold the per-row azimuth sampling fixed; scale points with rows
         tmp = tempfile.mkdtemp(prefix=f"sr_rows{rows}_")
         generate_kitti_sequence(
-            tmp, "95", SyntheticSpec(frames=args.frames, image_width=W,
+            tmp, "95", SyntheticSpec(frames=frames, image_width=W,
                                      image_height=H, focal=240.0,
                                      lidar_rows=rows, lidar_cols=500,
                                      step=0.55, loop=True,
-                                     road_texture=args.road_texture))
+                                     road_texture=road_texture))
         seq = KittiSequence(tmp, "95", image_width=W, image_height=H)
-        if args.max_range is not None:
+        if max_range is not None:
             import numpy as np
             inner_scans = seq.scans
-            rng_cap = args.max_range
 
             def capped_scans(max_points, _inner=inner_scans):
                 for xyzi, count in _inner(max_points):
                     r = np.linalg.norm(xyzi[:count, :3], axis=1)
-                    keep = xyzi[:count][r <= rng_cap]
+                    keep = xyzi[:count][r <= max_range]
                     out = np.zeros_like(xyzi)
                     out[:len(keep)] = keep
                     yield out, len(keep)
@@ -94,11 +96,10 @@ def main():
             max_points=max(16384, 1 << (rows * 500 - 1).bit_length()),
             max_features=384, image_width=W, image_height=H,
             radiusSearch_count_min=1,
-            road_any_far_veto=not args.no_far_veto,
+            road_any_far_veto=far_veto,
             ransac_num_hypotheses=256, ransac_subsample_points=1024)
         out = eval_depth_sequence(seq, cfg, max_tracks=512, max_length=8,
                                   verbose=False)
-        from mono_lidar_depth_tpu.core.result_types import DepthResultType
         counters = out.get("counters")
         fails = {}
         if counters is not None:
@@ -109,9 +110,9 @@ def main():
                     fails[DepthResultType(i).name] = round(
                         counters[i] / total, 4)
         row = {"lidar_rows": rows,
-               "max_range": args.max_range,
-               "road_texture": args.road_texture,
-               "far_veto": not args.no_far_veto,
+               "max_range": max_range,
+               "road_texture": road_texture,
+               "far_veto": far_veto,
                "success_all": round(out["success_rate_all"], 4),
                "success_covered":
                    round(out["success_rate_lidar_covered"], 4),
@@ -119,7 +120,7 @@ def main():
                "top_outcomes": fails}
         results.append(row)
         print(json.dumps(row), flush=True)
-    print(json.dumps({"sweep": results}))
+    return results
 
 
 if __name__ == "__main__":

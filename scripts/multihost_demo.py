@@ -4,9 +4,9 @@
 BASELINE config 5 exercises keyframes/map blocks partitioned ACROSS
 HOSTS.  This demo runs the landmark-sharded Schur BA over a
 `jax.distributed` mesh spanning SEPARATE PROCESSES (the multi-host
-topology; on real pods the same code rides DCN between hosts and ICI
-within slices), and checks the result against the single-process
-solver.
+topology: on GPU hosts the same code rides the network between hosts
+and NVLink within one), and checks the result against the
+single-process solver.
 
 Run:  python scripts/multihost_demo.py            # spawns 2 processes
       python scripts/multihost_demo.py --worker N # internal

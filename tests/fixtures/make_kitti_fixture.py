@@ -25,8 +25,9 @@ that break naive parsers, and this fixture pins each one:
 Scene: textured ground plane + frontal wall + two box obstacles,
 rendered consistently into both the scans and the images from a
 vehicle translating 0.8 m/frame along +x (velodyne convention: x
-forward, y left, z up).  Deterministic — regenerating the fixture is
-byte-identical.
+forward, y left, z up).  Deterministic — regenerating the fixture gives
+identical scans and pixels.  (The committed PNGs were written with
+adaptive row filters, which the image-decode test relies on.)
 
 Usage: python tests/fixtures/make_kitti_fixture.py [outdir]
 """
@@ -35,6 +36,8 @@ import sys
 from pathlib import Path
 
 import numpy as np
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
 SEQ = "04"
 FRAMES = 2
@@ -214,14 +217,13 @@ def main(outdir: str) -> None:
             fh.write(" ".join(f"{x:.6e}" for x in m.ravel()) + "\n")
 
     # ---- scans + images ---------------------------------------------
-    from PIL import Image
+    from mono_lidar_depth_tpu.io.png import write_png
 
     for k in range(FRAMES):
         scan = make_scan(k)
         scan.tofile(seq_dir / "velodyne" / f"{k:06d}.bin")
         img = make_image(k)
-        Image.fromarray(img).save(
-            seq_dir / "image_0" / f"{k:06d}.png", optimize=True)
+        write_png(seq_dir / "image_0" / f"{k:06d}.png", img)
         print(f"frame {k}: {len(scan)} points, image {img.shape}")
     print(f"fixture written to {root}")
 

@@ -1,4 +1,4 @@
-"""Round-over-round VO accuracy gate (VERDICT r4 weak #3).
+"""Round-over-round VO accuracy gate.
 
 The r3 -> r4 KLT window-sampler rewrite silently cost 10% of config-3
 ATE (2.27 -> 2.50 m: its zero-slack center clamp froze patches whose
@@ -10,9 +10,8 @@ parity-record configuration (scripts/make_parity_record.py config 3:
 config) on the CPU backend and asserts the ATE/RPE envelope.
 
 Envelope: measured 2.073 m ATE / 0.0574 m RPE-trans at the r5 fix
-(CPU; the TPU backend lands within ~0.1 m of CPU since the r3
-precision pinning).  The bounds leave ~15% headroom for cross-backend
-and chaotic run-to-run variation — a regression of the r4 class
+(CPU).  The bounds leave ~15% headroom for cross-backend and chaotic
+run-to-run variation — a regression of the r4 class
 (+0.23 m systematic) fails loudly.  ACCURACY.md carries the per-round
 history.
 """

@@ -4,8 +4,8 @@ same Gauss-Newton step as a literal einsum-built oracle.
 The oracle below is the direct [K, L, 2, 6]-layout formulation (Jp @
 [I | -hat(p)] built as explicit small-matrix products) — numerically
 the same math, organized the naive way.  The production code in
-vo/ba.py restructures every per-landmark tensor to keep L minor (lane
-dimension) for TPU tiling; this fuzz pins the two to each other.
+vo/ba.py restructures every per-landmark tensor to keep L the minor
+(contiguous) dimension; this fuzz pins the two to each other.
 """
 
 import numpy as np

@@ -171,13 +171,7 @@ def test_distributed_pose_graph_matches_single():
     assert float(graph_cost(dist)) < 0.5 * float(graph_cost(graph))
 
 
-def test_graft_dryrun_multichip_kitti_shapes():
-    """CI coverage for the driver's multichip dryrun (VERDICT r4 #7):
-    the FULL deployment-shape path — 131k-point scans, 2048 features,
-    1226x370 grid, 8192 landmarks, 4541-pose graph — over the virtual
-    8-device mesh, exactly as the driver invokes it.  Shard-remainder
-    or per-shard-memory regressions in the sharded programs fail here,
-    not in the end-of-round MULTICHIP artifact.  (~21 s on CPU.)"""
+def _graft():
     import sys
     from pathlib import Path
 
@@ -186,7 +180,24 @@ def test_graft_dryrun_multichip_kitti_shapes():
         sys.path.insert(0, str(repo))
     import __graft_entry__ as graft
 
-    # conftest already pinned the 8-device virtual CPU platform; the
-    # dryrun's own env setup is a no-op in-process and its
-    # jax.config.update on the initialized backend is caught inside.
-    graft.dryrun_multichip(8)
+    return graft
+
+
+def test_graft_dryrun_multichip_kitti_shapes():
+    """CI coverage for the multichip dryrun: the FULL deployment-shape
+    path — 131k-point scans, 2048 features, 1226x370 grid, 8192
+    landmarks, 4541-pose graph — over the virtual 8-device mesh.
+    Shard-remainder or per-shard-memory regressions in the sharded
+    programs fail here, not on a multi-card host."""
+    out = _graft().dryrun_multichip(8)
+    assert out["codes"].shape == (8, 2048)
+    assert np.isfinite(out["pg_t"]).all()
+
+
+def test_graft_multichip_matches_single_device():
+    """The four-card path of chip_smoke.py (`--four-cards`), rehearsed on
+    four virtual CPU devices: sharded outputs == single-device ones."""
+    graft = _graft()
+    diff = graft.compare_multichip(graft.dryrun_multichip(4),
+                                   graft.multichip_reference(4))
+    assert diff["code_agreement"] == 1.0

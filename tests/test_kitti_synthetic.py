@@ -56,7 +56,8 @@ def test_depth_eval_end_to_end(dataset, cfg):
     assert out["total_points"] > 300
     # on clean planar synthetic surfaces the lidar-covered success rate
     # must be substantial (measured 0.49 on this 7-frame scene, 0.52 on
-    # the 220-frame loop record, PARITY_r2.md — bound with ~10% margin)
+    # the 220-frame loop of scripts/make_parity_record.py — bound with
+    # ~10% margin)
     assert out["success_rate_lidar_covered"] > 0.45, out
 
 

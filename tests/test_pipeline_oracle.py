@@ -4,10 +4,10 @@ A plain-numpy, per-feature-loop port of the reference's depth state
 machine (`DepthEstimator::CalculateDepth`, DepthEstimator.cpp:491-600;
 `CalculateDepthSegmented` :903-1037; road fallback :782-900 +
 RoadDepthEstimator*.cpp) — exactly as written, including code
-precedence — fuzzed against the batched TPU pipeline across random
+precedence — fuzzed against the batched pipeline across random
 scenes x configs.
 
-Where the TPU build deliberately deviates from the reference (each
+Where the batched build deliberately deviates from the reference (each
 deviation documented at its implementation site), the oracle follows
 the build's documented semantics:
   * grid collision rule "nearest" (packed zq|idx scatter-min) instead
